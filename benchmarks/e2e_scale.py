@@ -1,4 +1,4 @@
-"""End-to-end scale run: 1K samples, full pipeline on one chip.
+"""End-to-end scale run: 1K samples, full pipeline on one device.
 
 Mirrors BASELINE.json config 3 ("1K bacterial genomes, containment
 threshold sweep 0.3/0.5/0.8") with synthetic FracMinHash sketches:
@@ -55,7 +55,9 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax")
+    from kspider_tpu.utils.jaxcache import enable_persistent_cache
+
+    enable_persistent_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
@@ -100,7 +102,7 @@ def main():
     n_clusters = {}
     for cutoff in (0.3, 0.5, 0.8):
         t0 = time.perf_counter()
-        out = core_cluster.cluster_index(prefix, cutoff, use_tpu=not args.cpu)
+        out = core_cluster.cluster_index(prefix, cutoff, use_device=not args.cpu)
         cluster_times[cutoff] = time.perf_counter() - t0
         with open(out) as f:
             n_clusters[cutoff] = sum(1 for _ in f)

@@ -79,7 +79,9 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax")
+    from kspider_tpu.utils.jaxcache import enable_persistent_cache
+
+    enable_persistent_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
@@ -150,7 +152,7 @@ def main():
 
     t0 = time.perf_counter()
     core_pairwise.run_pairwise(
-        prefix, index=index, use_tpu=not args.cpu, echo_timers=False,
+        prefix, index=index, use_device=not args.cpu, echo_timers=False,
         min_shared=args.min_shared,
     )
     with open(prefix + "_kSpider_pairwise.tsv") as f:
@@ -159,7 +161,7 @@ def main():
     print(f"pairwise:         {t_pw:8.3f}s  rows={n_rows}", flush=True)
 
     t0 = time.perf_counter()
-    out = core_cluster.cluster_index(prefix, 0.55, use_tpu=not args.cpu)
+    out = core_cluster.cluster_index(prefix, 0.55, use_device=not args.cpu)
     with open(out) as f:
         n_clusters = sum(1 for _ in f)
     print(f"cluster c=0.55:   {time.perf_counter() - t0:8.3f}s  "

@@ -1,4 +1,4 @@
-"""Index-build backend A/B: host (native/numpy) vs device (TPU sort).
+"""Index-build backend A/B: host (native/numpy) vs device (lax.sort).
 
 The index build is the stage replacing the reference's color-update loop
 (/root/reference/src/sourmash_indexing.cpp:190-260).  This benchmark
@@ -38,7 +38,9 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax")
+    from kspider_tpu.utils.jaxcache import enable_persistent_cache
+
+    enable_persistent_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 

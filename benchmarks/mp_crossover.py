@@ -1,4 +1,4 @@
-"""Measure the dense-vs-tiled multi-process crossover (VERDICT r2 §6).
+"""Measure the dense-vs-tiled multi-process crossover.
 
 The multi-process dispatcher (parallel/multiprocess.run_multiprocess_
 pairwise) reuses the single-process AUTO_TILED_THRESHOLD (16384) to pick
@@ -44,12 +44,12 @@ mode, pid, nproc, port, prefix = (
 coord = f"localhost:{{port}}"
 if mode == "dense":
     mp.run_distributed_pairwise(
-        prefix, use_tpu=False, coordinator=coord, num_processes=nproc,
+        prefix, use_device=False, coordinator=coord, num_processes=nproc,
         process_id=pid, echo_timers=False,
     )
 else:
     mp.run_distributed_tiled_pairwise(
-        prefix, use_tpu=False, panel=2048, block=1024,
+        prefix, use_device=False, panel=2048, block=1024,
         coordinator=coord, num_processes=nproc, process_id=pid,
         echo_timers=False,
     )

@@ -63,7 +63,9 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax")
+    from kspider_tpu.utils.jaxcache import enable_persistent_cache
+
+    enable_persistent_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
@@ -125,7 +127,7 @@ def main():
         engine="xla" if args.cpu else "auto",
         min_shared=args.min_shared, echo_progress=True,
         cache_bytes=(2 << 30) if args.use_cache
-        else (0 if args.no_cache else None),  # None = auto (on-TPU single dev)
+        else (0 if args.no_cache else None),  # None = auto (one accelerator)
         plan=plan,
     )
     t_stream = time.perf_counter() - t0
@@ -166,8 +168,7 @@ def main():
 
     if args.cutoffs:
         # close the pipeline loop at scale: cluster + export on the
-        # streamed TSV (VERDICT r1: 100K evidence must not stop at
-        # pairwise).  Needs namesMap + seqToKmersNo alongside the TSV.
+        # streamed TSV.  Needs namesMap + seqToKmersNo alongside the TSV.
         from kspider_tpu.core import cluster as cluster_core
         from kspider_tpu.models import export as export_model
 
@@ -179,7 +180,7 @@ def main():
         for cutoff in (float(c) for c in args.cutoffs.split(",")):
             t0 = time.perf_counter()
             out = cluster_core.cluster_index(
-                prefix, cutoff, use_tpu=not args.cpu
+                prefix, cutoff, use_device=not args.cpu
             )
             n_clusters = sum(1 for _ in open(out))
             print(f"cluster c={cutoff}: {time.perf_counter() - t0:8.3f}s  "

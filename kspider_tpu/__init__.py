@@ -1,13 +1,14 @@
-"""kSpider-TPU: a TPU-native sequence-clustering engine.
+"""kSpider-TPU: an accelerator sequence-clustering engine.
 
 A from-scratch reimplementation of the capabilities of dib-lab/kSpider
 (sketch -> k-mer color index -> pairwise containment matrix -> connected
-components clustering -> export), designed for TPU hardware:
+components clustering -> export), built on JAX/XLA:
 
-- the pairwise co-occurrence engine runs as blocked int8 matmuls on the MXU
-  (exact integer arithmetic via 7-bit limb decomposition of color weights),
-  sharded over a ``jax.sharding.Mesh`` with ``psum`` merges over ICI
-  (reference hot loop: /root/reference/src/pairwise.cpp:199-237);
+- the pairwise co-occurrence engine runs as blocked int8 matmuls with
+  int32 accumulation (exact integer arithmetic via 7-bit limb
+  decomposition of color weights), sharded over a ``jax.sharding.Mesh``
+  with ``psum`` merges across devices (reference hot loop:
+  /root/reference/src/pairwise.cpp:199-237);
 - connected-components clustering runs on device as pointer-jumping label
   propagation (reference: rustworkx call in
   /root/reference/pykSpider/kSpider2/ks_clustering.py:120);

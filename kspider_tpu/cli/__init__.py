@@ -1,4 +1,4 @@
-"""Click CLI mirroring the reference command surface
+"""argparse CLI mirroring the reference command surface
 (/root/reference/pykSpider/kSpider2/kSpider_main.py:12-19):
 
 sketch, index, pairwise, cluster, export (+ hidden index_kmers /

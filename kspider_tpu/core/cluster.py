@@ -111,7 +111,7 @@ def cluster_from_index(
     prefix: str,
     cutoff: float,
     dist_type: str = "max_cont",
-    use_tpu: bool = True,
+    use_device: bool = True,
     panel: int = 4096,
     block: int = 1024,
     min_shared: int = 1,
@@ -146,7 +146,7 @@ def cluster_from_index(
     counts = np.where(index.group_kmer_count < 0, 0, index.group_kmer_count)
     cc_fn = (
         cc_ops.connected_components
-        if use_tpu
+        if use_device
         else cc_ops.connected_components_scipy
     )
 
@@ -172,7 +172,7 @@ def cluster_from_index(
 
     log.INFO("Clustering from the panel-streamed engine (no TSV)...")
     for _, _, gi, gj, vals in tp.iter_panel_pairs(
-        plan, engine="auto" if use_tpu else "xla", block=block,
+        plan, engine="auto" if use_device else "xla", block=block,
         min_shared=min_shared, mesh=mesh,
     ):
         cmin, cavg, cmax = core_pw.containment_columns(
@@ -201,7 +201,7 @@ def cluster_index(
     prefix: str,
     cutoff: float,
     dist_type: str = "max_cont",
-    use_tpu: bool = True,
+    use_device: bool = True,
     logger: Optional[Logger] = None,
     chunk_rows: int = EDGE_CHUNK_ROWS,
 ) -> str:
@@ -230,7 +230,7 @@ def cluster_index(
     log.INFO("Loading TSV pairwise file")
     cc_fn = (
         cc_ops.connected_components
-        if use_tpu
+        if use_device
         else cc_ops.connected_components_scipy
     )
 

@@ -142,12 +142,14 @@ def build_index_from_hash_sets(
     the reference reports the raw ``mins`` length even if it contains
     duplicates (/root/reference/src/sourmash_indexing.cpp:187).
 
-    ``consume=True`` releases each source array as soon as it is copied
+    ``consume=True`` releases the source arrays once they are copied
     into the flat posting buffer (``hash_arrays`` must then be a mutable
-    list; entries are set to ``None``).  At 2.5B postings the per-sample
-    arrays are ~20 GB — without consume they stay co-resident with the
-    flat copy through the whole build, which is what bounds the max N
-    on a 125 GB host (BASELINE.md, 1M-run wall #3).
+    list; entries are set to ``None``): each one right after its copy on
+    the numpy path, all of them after the parallel fill completes on the
+    native path (taken at >= 1M postings), whose peak is therefore still
+    sources plus flat buffers.  At 2.5B postings the per-sample arrays
+    are ~20 GB — without consume they stay co-resident with the flat
+    copy through the whole build, which bounds the max N by host RAM.
     """
     n = len(names)
     if len(hash_arrays) != n:
@@ -178,19 +180,15 @@ def build_index_from_hash_sets(
         )
 
     # exact-size flat buffers; one pass copies each sample in and (with
-    # consume) immediately releases the source, so peak memory is ~one
-    # copy of the postings instead of two.  At >=1M postings the copy
-    # sweep runs in native OpenMP (ks_fill_postings) — the per-sample
-    # numpy slice-assignment loop is ~19 s of pure dispatch overhead at
-    # 328M postings (BASELINE.md round-5 phase split).
+    # consume) releases the sources.  At >=1M postings the copy sweep runs
+    # in native OpenMP (ks_fill_postings) — the per-sample numpy
+    # slice-assignment loop is dominated by per-sample dispatch overhead.
     if total >= 100_000_000:
         # Return accumulated heap fragments to the OS before the
         # multi-GB allocations below: a preamble that churned millions
         # of small arrays (e.g. per-sample sketch merges) leaves the
-        # glibc arenas in a state that degrades the whole build ~25%
-        # (measured at 2.57B postings: 577-711 s without, 466.8 s with;
-        # BASELINE.md round-5 allocator-state section).  glibc-only,
-        # best-effort.
+        # glibc arenas in a state that slows the whole build.
+        # glibc-only, best-effort.
         try:
             import ctypes
 

@@ -31,12 +31,14 @@ def format_float_cpp(x: float) -> str:
 
 def compute_shared_matrix(
     index: ColorIndex,
-    use_tpu: bool = True,
+    use_device: bool = True,
     block: int = 512,
     engine: str = "auto",
 ) -> np.ndarray:
-    """S[i, j] = number of k-mer hashes shared by groups i and j (int64)."""
-    if use_tpu:
+    """S[i, j] = number of k-mer hashes shared by groups i and j (int64).
+
+    ``use_device=False`` runs the numpy reference on the host instead."""
+    if use_device:
         return pairwise_ops.shared_kmer_matrix(
             index.color_offsets,
             index.color_members,
@@ -185,15 +187,26 @@ def write_pairwise_rows_coo(
             f.write("\n")
 
 
-# beyond this sample count the full NxN host matrix (int64) would exceed
-# ~2GB and the tiled streaming engine takes over automatically
-AUTO_TILED_THRESHOLD = 16384
+AUTO_TILED_THRESHOLD = pairwise_ops.AUTO_TILED_THRESHOLD
+
+
+def resolve_engine(engine: str, use_device: bool, n: int) -> str:
+    """The engine the pairwise stage runs for N samples: ``auto`` on the
+    device becomes :func:`~kspider_tpu.ops.pairwise.choose_engine`'s
+    pick over this process's devices; anything else is kept."""
+    if engine != "auto" or not use_device:
+        return engine
+    import jax
+
+    return pairwise_ops.choose_engine(
+        jax.default_backend(), len(jax.local_devices()), n
+    )
 
 
 def run_pairwise(
     prefix: str,
     index: Optional[ColorIndex] = None,
-    use_tpu: bool = True,
+    use_device: bool = True,
     echo_timers: bool = True,
     engine: str = "auto",
     panel: int = 4096,
@@ -234,16 +247,19 @@ def run_pairwise(
         profile_cm = jax.profiler.trace(profile_dir)
     else:
         profile_cm = contextlib.nullcontext()
-    tiled = engine == "tiled" or (
-        engine == "auto" and use_tpu and index.num_groups > AUTO_TILED_THRESHOLD
-    )
+    engine = resolve_engine(engine, use_device, index.num_groups)
+    if echo_timers and use_device:
+        import jax
+
+        print(f"pairwise engine: {engine} over "
+              f"{len(jax.local_devices())} device(s)")
     with profile_cm:
-        if tiled:
+        if engine == "tiled":
             from kspider_tpu.ops import tiled_pairwise
 
             n_rows = tiled_pairwise.stream_pairwise_tsv(
                 index, prefix, panel=panel, min_shared=min_shared,
-                engine="auto" if use_tpu else "xla",
+                engine="auto" if use_device else "xla",
                 echo_progress=echo_timers,
             )
             if echo_timers:
@@ -254,7 +270,9 @@ def run_pairwise(
                     f"streamed {n_rows} pair rows to {prefix}_kSpider_pairwise.tsv"
                 )
             return None
-        shared = compute_shared_matrix(index, use_tpu=use_tpu, engine=engine)
+        shared = compute_shared_matrix(
+            index, use_device=use_device, engine=engine
+        )
     if echo_timers:
         print(
             f"pairwise matrix construction: {time.perf_counter() - t0:.6g} secs"

@@ -83,7 +83,7 @@ _load_error: Optional[BaseException] = None
 #: bumped in lockstep with ks_abi_version() in native/src/kspider_native.cpp;
 #: a stale .so is rebuilt (make clean to force a fresh inode for dlopen)
 #: instead of being called with mismatched signatures
-_ABI_VERSION = 4
+_ABI_VERSION = 5
 
 
 def load_error() -> Optional[BaseException]:
@@ -197,7 +197,12 @@ def _try_load() -> Optional[ctypes.CDLL]:
         u8p = ctypes.POINTER(ctypes.c_uint8)
         lib.ks_pack_segments.argtypes = [
             i32p, i64p, i64p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, u8p,
+            ctypes.c_int64, ctypes.c_int64, u8p,
+        ]
+        lib.ks_fill_postings.restype = ctypes.c_int
+        lib.ks_fill_postings.argtypes = [
+            ctypes.POINTER(u64p), i64p, i32p, i64p, ctypes.c_int64, u64p,
+            i32p,
         ]
         lib.ks_write_pairwise_coo.restype = ctypes.c_int
         lib.ks_write_pairwise_coo.argtypes = [
@@ -307,7 +312,7 @@ def fill_postings(entries, hashes_out: np.ndarray, gids_out: np.ndarray):
     triples; the caller owns the output buffers and the offsets (an
     exclusive prefix sum of the lengths).  Replaces the per-sample numpy
     slice-assignment loop in core/index.build_index_from_hash_sets
-    (~19 s of pure dispatch overhead at 328M postings)."""
+    (dominated by per-sample dispatch overhead)."""
     lib = _try_load()
     n = len(entries)
     if n == 0:
@@ -323,7 +328,7 @@ def fill_postings(entries, hashes_out: np.ndarray, gids_out: np.ndarray):
         lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         gids.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        n,
+        ctypes.c_int64(n),
         _as_u64p(hashes_out),
         gids_out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
     )
@@ -397,25 +402,21 @@ def pack_segments(
     n8: int,
     block: int,
     n_blocks: int,
-    transposed: bool,
     out: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """OpenMP bitmask packer for the panel-streamed engine.
 
     Segment ``s`` (postings ``mem_s[seg_start[s] : seg_start[s] +
     seg_count[s]]``, panel-local after subtracting ``panel_base``) fills
-    output row ``(s // block, s % block)``.  Returns the packed blocks:
-    ``u8[n_blocks, block, n8]`` or, transposed, ``u8[n_blocks, n8, block]``
-    (the Pallas kernel layout) — replacing both the ``np.bitwise_or.at``
-    pack and the post-hoc transpose copy.
+    output row ``(s // block, s % block)``.  Returns the packed blocks
+    ``u8[n_blocks, block, n8]``, replacing the ``np.bitwise_or.at`` pack.
     """
     lib = _try_load()
     mem_s = np.ascontiguousarray(mem_s, dtype=np.int32)
     seg_start = np.ascontiguousarray(seg_start, dtype=np.int64)
     seg_count = np.ascontiguousarray(seg_count, dtype=np.int64)
-    shape = (n_blocks, n8, block) if transposed else (n_blocks, block, n8)
     if out is None:
-        out = np.zeros(shape, dtype=np.uint8)
+        out = np.zeros((n_blocks, block, n8), dtype=np.uint8)
     lib.ks_pack_segments(
         mem_s.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         seg_start.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
@@ -424,7 +425,6 @@ def pack_segments(
         ctypes.c_int64(panel_base),
         ctypes.c_int64(n8),
         ctypes.c_int64(block),
-        ctypes.c_int32(1 if transposed else 0),
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
     )
     return out

@@ -4,7 +4,7 @@ The reference reloads its index by deserializing phmap tables
 (/root/reference/src/pairwise.cpp:95-170).  For repeated analysis runs we
 additionally persist the :class:`ColorIndex` arrays as a single compressed
 npz — loading is a plain mmap-friendly array read, and the layout is the
-same CSR the TPU engines consume directly.  The phmap artifacts remain the
+same CSR the device engines consume directly.  The phmap artifacts remain the
 interchange format; this cache is an optimization written alongside them.
 """
 

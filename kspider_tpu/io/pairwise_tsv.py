@@ -5,16 +5,18 @@ pairwise TSV (and the row-aligned ``..ani_col.tsv`` column file) back in:
 both stages in the reference re-parse the file with per-line ``float()``
 (/root/reference/pykSpider/kSpider2/ks_clustering.py:63-117,
 /root/reference/pykSpider/kSpider2/ks_export.py:44-60); here the parse is
-pandas' C engine with ``float_precision="round_trip"``, which is bit-equal
-to ``float()``/strtod on every value (pandas' default fast parser differs
-by 1 ulp on ~36% of 17-significant-digit reprs — enough to flip a
-threshold comparison sitting on the cutoff).
+``np.loadtxt`` over blocks of lines, whose float conversion is
+``PyOS_string_to_double`` — bit-equal to ``float()``/strtod on every value
+(a fast approximate parser differs by 1 ulp on many 17-significant-digit
+reprs — enough to flip a threshold comparison sitting on the cutoff).
 
 The pairwise/ani files are required to be row-aligned; a length mismatch
 (stale or truncated ani file) raises instead of silently zip-truncating.
 """
 
-from typing import Iterator, Optional, Tuple
+import contextlib
+import itertools
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -24,7 +26,15 @@ import numpy as np
 #: (10^8-10^9 TSV rows) streams in constant memory.
 PAIRWISE_CHUNK_ROWS = 10_000_000
 
-_COLUMN_NAMES = ["s1", "s2", "sh", "mn", "av", "mx"]
+def _read_block(f, n: int) -> List[str]:
+    return list(itertools.islice(f, n))
+
+
+def _parse(lines: List[str], cols) -> np.ndarray:
+    """Tab-separated lines -> float64 [rows, len(cols)] (ids < 2**53 stay
+    exact)."""
+    return np.loadtxt(lines, delimiter="\t", usecols=cols,
+                      dtype=np.float64, ndmin=2)
 
 
 def iter_pairwise_chunks(
@@ -41,58 +51,37 @@ def iter_pairwise_chunks(
     distance instead comes from the row-aligned single-column ani file
     and ``dist_col`` is ignored.
     """
-    import pandas as pd
-
-    if ani_file is not None:
-        pw_iter = pd.read_csv(
-            pairwise_tsv, sep="\t", header=0, usecols=[0, 1],
-            names=_COLUMN_NAMES,
-            dtype={"s1": np.int64, "s2": np.int64},
-            chunksize=chunk_rows, engine="c",
-        )
-        ani_iter = pd.read_csv(
-            ani_file, sep="\t", header=0, names=["d"],
-            dtype={"d": np.float64}, chunksize=chunk_rows, engine="c",
-            float_precision="round_trip",
-        )
+    with contextlib.ExitStack() as stack:
+        pw = stack.enter_context(open(pairwise_tsv))
+        next(pw, None)  # header
+        ani = None
+        if ani_file is not None:
+            ani = stack.enter_context(open(ani_file))
+            next(ani, None)
         rows_pw = rows_ani = 0
         while True:
-            pw_chunk = next(pw_iter, None)
-            ani_chunk = next(ani_iter, None)
-            if pw_chunk is None and ani_chunk is None:
+            pw_lines = _read_block(pw, chunk_rows)
+            if ani is None:
+                if not pw_lines:
+                    return
+                a = _parse(pw_lines, (0, 1, dist_col))
+                yield a[:, 0].astype(np.int64), a[:, 1].astype(np.int64), a[:, 2]
+                continue
+            ani_lines = _read_block(ani, chunk_rows)
+            if not pw_lines and not ani_lines:
                 return
-            rows_pw += 0 if pw_chunk is None else len(pw_chunk)
-            rows_ani += 0 if ani_chunk is None else len(ani_chunk)
-            if (
-                pw_chunk is None
-                or ani_chunk is None
-                or len(pw_chunk) != len(ani_chunk)
-            ):
+            rows_pw += len(pw_lines)
+            rows_ani += len(ani_lines)
+            if len(pw_lines) != len(ani_lines):
                 raise ValueError(
                     f"row-aligned files disagree: {pairwise_tsv} has "
                     f">= {rows_pw} rows but {ani_file} has >= {rows_ani} "
                     f"(stale or truncated --estimate-ani output? re-run "
                     f"kspider pairwise --estimate-ani)"
                 )
+            a = _parse(pw_lines, (0, 1))
             yield (
-                pw_chunk["s1"].to_numpy(),
-                pw_chunk["s2"].to_numpy(),
-                ani_chunk["d"].to_numpy(),
+                a[:, 0].astype(np.int64),
+                a[:, 1].astype(np.int64),
+                _parse(ani_lines, (0,))[:, 0],
             )
-
-    for chunk in pd.read_csv(
-        pairwise_tsv, sep="\t", header=0, usecols=[0, 1, dist_col],
-        names=_COLUMN_NAMES,
-        dtype={
-            "s1": np.int64,
-            "s2": np.int64,
-            _COLUMN_NAMES[dist_col]: np.float64,
-        },
-        chunksize=chunk_rows, engine="c",
-        float_precision="round_trip",
-    ):
-        yield (
-            chunk["s1"].to_numpy(),
-            chunk["s2"].to_numpy(),
-            chunk[_COLUMN_NAMES[dist_col]].to_numpy(),
-        )

@@ -14,7 +14,6 @@ import os
 from typing import List, Optional, Tuple
 
 import numpy as np
-import pandas as pd
 
 from kspider_tpu.io import artifacts as artifacts_io
 from kspider_tpu.io import pairwise_tsv as pairwise_tsv_io
@@ -47,6 +46,14 @@ def get_newick(node, parent_dist, leaf_names, newick="") -> str:
     return "(%s" % newick
 
 
+def _csv_value(v) -> str:
+    """One field as pandas' ``to_csv`` writes it: ``repr`` for floats,
+    an empty field for NaN, ``str`` otherwise."""
+    if isinstance(v, float):
+        return "" if v != v else repr(v)
+    return str(v)
+
+
 #: rows parsed per chunk when streaming the pairwise TSV (same scale as
 #: the reference's 10M-edge batches, ks_clustering.py:26)
 EXPORT_CHUNK_ROWS = pairwise_tsv_io.PAIRWISE_CHUNK_ROWS
@@ -71,8 +78,9 @@ def export_pairwise(
     (CLI ``--force-distmat``) to override, ``False`` to always skip.
     The reference (ks_export.py:152-160) would attempt the quadratic
     pandas pivot at any N and OOM long before.  Output bytes are
-    identical to the reference's per-line loop: pandas ``to_csv`` float
-    formatting is the same shortest-round-trip repr as an f-string."""
+    identical to the reference's: floats are written as their
+    shortest-round-trip ``repr`` and NaN as an empty field, as pandas'
+    ``to_csv`` writes them."""
     log = logger or Logger(quiet=True)
     if distance_type not in DISTANCE_TO_COL:
         log.ERROR("unknown distance!")
@@ -153,11 +161,12 @@ def export_pairwise(
         for ids1, ids2, dist in pairwise_tsv_io.iter_pairwise_chunks(
             pairwise_tsv, dist_col, ani_file, chunk_rows
         ):
-            pd.DataFrame(
-                {"a": name_arr[ids1], "b": name_arr[ids2], "d": dist}
-            ).to_csv(
-                new, sep="\t", header=False, index=False,
-                quoting=csv.QUOTE_NONE,
+            new.writelines(
+                f"{a}\t{b}\t{_csv_value(d)}\n"
+                for a, b, d in zip(
+                    name_arr[ids1].tolist(), name_arr[ids2].tolist(),
+                    dist.tolist(),
+                )
             )
             if distmat:
                 kept.append((ids1, ids2, dist))
@@ -183,9 +192,12 @@ def export_pairwise(
         vals = 1.0 - alld
         mat[i_idx, j_idx] = vals
         mat[j_idx, i_idx] = vals
-    df = pd.DataFrame(mat, index=unique_ids, columns=unique_ids)
     log.INFO(f"Writing distance matrix to {distmat_out}")
-    df.to_csv(distmat_out, sep="\t")
+    with open(distmat_out, "w", newline="") as f:
+        w = csv.writer(f, delimiter="\t", lineterminator="\n")
+        w.writerow([""] + unique_ids)
+        for name, row in zip(unique_ids, mat.tolist()):
+            w.writerow([name] + [_csv_value(v) for v in row])
 
     newick_path = None
     if newick:
@@ -195,13 +207,12 @@ def export_pairwise(
 
         simplefilter("ignore", ClusterWarning)
 
-        loaded_df = pd.read_csv(distmat_out, sep="\t")
         log.INFO(f"Writing newick to {newick_out}.")
-        names = list(loaded_df.columns[1:])
-        dist = loaded_df[loaded_df.columns[1:]].to_numpy()
-        z = linkage(dist, "single")
+        # the rows of the matrix just written, as the reference reads
+        # them back (its linkage treats each row as an observation)
+        z = linkage(mat.astype(np.float64), "single")
         tree = to_tree(z, False)
-        nw = get_newick(tree, tree.dist, names)
+        nw = get_newick(tree, tree.dist, unique_ids)
         with open(newick_out, "w") as f:
             f.write(nw)
         newick_path = newick_out

@@ -1,19 +1,18 @@
 """Bitmask-layout co-occurrence: the fast path of the pairwise engine.
 
-The postings->dense-block scatter (ops/pairwise.py) is the throughput
-bottleneck on TPU: XLA lowers scatter to serialized updates.  The
-TPU-native layout stores each color's membership as a packed bitmask
-(N/8 bytes per color).  The device then:
+A postings->dense-block scatter (ops/pairwise.py, engine "scatter") makes
+XLA serialize the updates.  This layout stores each color's membership
+as a packed bitmask (N/8 bytes per color) instead, and the device:
 
-  1. unpacks bits to an int8 0/1 block with VPU shifts/masks (vectorized,
+  1. unpacks bits to an int8 0/1 block with shifts and masks (vectorized,
      no scatter),
   2. scales by base-128 weight limbs,
-  3. accumulates the Gram matrix with int8 MXU matmuls.
+  3. accumulates the Gram matrix with int8 matmuls into int32.
 
-Packing happens once on host at index-build time with vectorized numpy
-(``np.bitwise_or.at``), and the packed index is 8x smaller than an int8
-presence matrix — it is also the natural serialization for device-resident
-indexes.  Bit order matches ``np.packbits`` (MSB first).
+Packing happens on the host with vectorized numpy (``np.bitwise_or.at``)
+or on the device from sorted posting keys (``scatter_pack_device``); the
+packed index is 8x smaller than an int8 presence matrix.  Bit order
+matches ``np.packbits`` (MSB first).
 """
 
 import functools
@@ -53,9 +52,9 @@ def device_pack_policy() -> Tuple[str, float]:
     """(policy, ratio) from ``KSPIDER_DEVICE_PACK`` (auto/force/off,
     default auto) and ``KSPIDER_DEVICE_PACK_RATIO`` (default 1.25 — ship
     posting keys when their payload is at least this many times smaller
-    than the packed bitmask).  On-chip scatter-pack cost is negligible
-    (~1.5-10 ms per 128-block side, measured v5e), so the byte ratio is
-    the whole decision."""
+    than the packed bitmask).  The byte ratio is the whole decision: the
+    on-device scatter-pack is assumed cheap next to the transfer it
+    saves."""
     import os
     import warnings
 
@@ -127,8 +126,7 @@ def delta_encode_keys(keys: np.ndarray, count: int):
     Keys are strictly increasing (scatter invariant), so consecutive
     deltas are >= 1 and — for the dense diagonal sides that dominate the
     posting-key payload at scale — almost always fit int16, halving the
-    H2D bytes (the 1M run ships 6.4 GB of diagonal keys; see
-    BASELINE.md).  Returns None when any delta exceeds int16 (sparse
+    H2D bytes.  Returns None when any delta exceeds int16 (sparse
     selections with large color gaps) — callers ship raw i32 keys.
     Deltas are defined so ``decoded[i] = first + cumsum(d)[i]`` with
     ``d[0] = 0``; positions past ``count`` are don't-care (the device
@@ -197,12 +195,9 @@ def encode_keys_best(keys: np.ndarray, count: int):
     return ("d16",) + e16
 
 
-@functools.partial(
-    jax.jit, static_argnames=("n_blocks", "block", "panel_pad", "transpose")
-)
+@functools.partial(jax.jit, static_argnames=("n_blocks", "block", "panel_pad"))
 def scatter_pack_device_delta8(
-    first, d8, exceptions, count, n_blocks: int, block: int,
-    panel_pad: int, transpose: bool,
+    first, d8, exceptions, count, n_blocks: int, block: int, panel_pad: int,
 ):
     """``scatter_pack_device`` over u8-delta keys with an escape channel.
 
@@ -221,21 +216,16 @@ def scatter_pack_device_delta8(
     d = jnp.where(iota == 0, 0, d)
     k = jnp.int32(first) + jnp.cumsum(d)
     k = jnp.where(iota < count, k, jnp.int32(total) + (iota - count))
-    return scatter_pack_device.__wrapped__(
-        k, n_blocks, block, panel_pad, transpose
-    )
+    return scatter_pack_device.__wrapped__(k, n_blocks, block, panel_pad)
 
 
-@functools.partial(
-    jax.jit, static_argnames=("n_blocks", "block", "panel_pad", "transpose")
-)
+@functools.partial(jax.jit, static_argnames=("n_blocks", "block", "panel_pad"))
 def scatter_pack_device_delta(
     first, deltas, count, n_blocks: int, block: int, panel_pad: int,
-    transpose: bool,
 ):
     """``scatter_pack_device`` over delta-compressed keys.
 
-    Decodes ``first + cumsum(int16 deltas)`` on device (one VPU cumsum),
+    Decodes ``first + cumsum(int16 deltas)`` on device (one cumsum),
     masks positions >= count to ascending out-of-range sentinels (keeps
     the scatter's sorted/unique hints valid, pad drops via mode='drop'),
     and reuses the scatter+byte-pack body.  Bit-exact with the raw-key
@@ -244,17 +234,11 @@ def scatter_pack_device_delta(
     k = jnp.int32(first) + jnp.cumsum(deltas.astype(jnp.int32))
     iota = jnp.arange(k.shape[0], dtype=jnp.int32)
     k = jnp.where(iota < count, k, jnp.int32(total) + (iota - count))
-    return scatter_pack_device.__wrapped__(
-        k, n_blocks, block, panel_pad, transpose
-    )
+    return scatter_pack_device.__wrapped__(k, n_blocks, block, panel_pad)
 
 
-@functools.partial(
-    jax.jit, static_argnames=("n_blocks", "block", "panel_pad", "transpose")
-)
-def scatter_pack_device(
-    keys, n_blocks: int, block: int, panel_pad: int, transpose: bool
-):
+@functools.partial(jax.jit, static_argnames=("n_blocks", "block", "panel_pad"))
+def scatter_pack_device(keys, n_blocks: int, block: int, panel_pad: int):
     """Build packed bitmask blocks ON DEVICE from sorted posting keys.
 
     ``keys`` i32[M]: ``seg * panel_pad + member`` per posting, strictly
@@ -264,16 +248,15 @@ def scatter_pack_device(
     ``indices_are_sorted`` hints stay valid and the pad drops out via
     ``mode='drop'``.
 
-    Returns u8[n_blocks, block, panel_pad/8] (or the transposed Pallas
-    layout [n_blocks, panel_pad/8, block]).  Output matches
+    Returns u8[n_blocks, block, panel_pad/8].  Output matches
     ``pack_bitmask_blocks`` bit-for-bit (MSB-first, np.packbits order).
 
     This is the H2D-thrifty alternative to host packing for the streamed
     engine: 4 bytes per posting cross the link instead of panel_pad/8
     bytes per color, a win whenever the selected segments are sparse
     (mean members-per-segment < panel_pad/32).  The bit-level scatter has
-    unique sorted indices (no read-modify-write), then a dense VPU
-    reduction packs 8 presence lanes into each byte.
+    unique sorted indices (no read-modify-write), then a dense elementwise
+    reduction packs 8 presence bits into each byte.
     """
     total = n_blocks * block * panel_pad
     flat = (
@@ -282,15 +265,11 @@ def scatter_pack_device(
         .set(1, mode="drop", unique_indices=True, indices_are_sorted=True)
     )
     a = flat.reshape(n_blocks, block, panel_pad)
-    # byte-pack via 8 strided lane slices; a reshape to (..., pbytes, 8)
-    # would put the 8 on the 128-lane minor dim and pad it 16x in HBM
+    # byte-pack via 8 strided slices of the minor dimension
     packed = jnp.zeros((n_blocks, block, panel_pad // 8), jnp.int32)
     for j in range(8):
         packed = packed + (a[..., j::8].astype(jnp.int32) << (7 - j))
-    packed = packed.astype(jnp.uint8)
-    if transpose:
-        packed = packed.transpose(0, 2, 1)
-    return packed
+    return packed.astype(jnp.uint8)
 
 
 def unpack_bits_to_int8(bits: jnp.ndarray) -> jnp.ndarray:

@@ -1,7 +1,7 @@
 """On-device index ingestion: sort postings, find runs, drop singletons.
 
 The index build is a sort + run-length problem (core/index.py).  On a
-small host the u64 sort dominates; this module moves it to the TPU:
+small host the u64 sort dominates; this module moves it to the device:
 
   1. (hash, gid) postings arrive as (hi32, lo32, gid) columns;
      ``jax.lax.sort`` with three lexicographic keys sorts them on device;
@@ -18,7 +18,8 @@ The host then groups the (small) compacted set into color classes; the
 per-group singleton counts needed for the colorsCount artifact are
 recovered arithmetically (unique-total minus multi-postings per group).
 
-Everything is O(P log P) sorts and O(P) scans — all TPU-native ops.
+Everything is O(P log P) sorts and O(P) scans — plain ``lax`` ops that
+compile for any backend.
 """
 
 import functools
@@ -84,8 +85,7 @@ def _posting_bucket(m: int) -> int:
     """Quarter-octave padded length for ``m`` postings.
 
     Every dataset has a different posting count; without padding each
-    build compiles a fresh sort/scan program for its exact shape (minutes
-    over a remote-compile path, measured in benchmarks/index_build.py).
+    build compiles a fresh sort/scan program for its exact shape.
     Buckets bound the compile-cache entries at <=25% pad waste."""
     if m <= 4096:
         return 4096

@@ -1,24 +1,27 @@
-"""Pairwise shared-k-mer co-occurrence on the MXU.
+"""Pairwise shared-k-mer co-occurrence as an exact integer Gram matrix.
 
 The reference's hot loop (/root/reference/src/pairwise.cpp:199-237)
 enumerates, for every color c, all C(|sources(c)|, 2) sample pairs and adds
 ``colorsCount[c]`` to a mutex-guarded hash map — quadratic scalar work with
 heavy contention.
 
-TPU-native formulation: the shared-k-mer matrix is the weighted Gram matrix
+Formulation: the shared-k-mer matrix is the weighted Gram matrix
 
     S = A^T · diag(w) · A          (S[i,j] = sum_c w_c A[c,i] A[c,j])
 
 where ``A`` is the (colors x samples) 0/1 membership matrix and ``w_c`` the
 number of k-mers with color c.  We compute it exactly in integer arithmetic
-as blocked int8 matmuls with int32 accumulation (the MXU's native int8
-path): weights are decomposed into base-128 limbs so every scaled entry
-fits in int8, and limb partial sums are recombined in int64 on the host.
+as blocked int8 matmuls with int32 accumulation: weights are decomposed
+into base-128 limbs so every scaled entry fits in int8, and limb partial
+sums are recombined in int64 on the host.
 
 Exactness argument: each limb matmul accumulates at most 127 * C_block per
 output element in int32; the scan accumulator adds at most 127 * C_total,
 so C_total < 2**31 / 127 colors per call is exact — callers split larger
 inputs into super-blocks (see ``shared_kmer_matrix``).
+
+Every engine is plain XLA; :func:`choose_engine` is the one place that
+decides which of them ``engine="auto"`` runs.
 """
 
 import functools
@@ -30,6 +33,40 @@ import numpy as np
 
 # int32 accumulator safety bound: 127 * MAX_COLORS_PER_CALL < 2**31
 _MAX_COLORS_PER_CALL = (2**31 - 1) // 127
+
+# beyond this sample count the full NxN host matrix (int64) would exceed
+# ~2GB and the panel-streamed engine takes over automatically
+AUTO_TILED_THRESHOLD = 16384
+
+#: backends the engines are built and checked for
+BACKENDS = ("cpu", "gpu")
+
+
+def choose_engine(backend: str, n_devices: int, n: int,
+                  dense_only: bool = False) -> str:
+    """The ``engine="auto"`` rule: (backend, local devices, N) -> engine.
+
+    - ``"tiled"``: N above :data:`AUTO_TILED_THRESHOLD` (the NxN host
+      matrix would not fit), unless the caller needs the dense matrix
+      (``dense_only``);
+    - ``"sharded"``: color blocks split over more than one local device,
+      partial Gram matrices merged with one psum;
+    - ``"bitmask"``: one device.
+
+    The backend never changes the engine: every engine is plain XLA and
+    compiles for each backend in :data:`BACKENDS`.  Any other backend is
+    refused rather than run on code nobody checked there.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"no pairwise engine is checked on backend {backend!r}; "
+            f"expected one of {BACKENDS}"
+        )
+    if n_devices < 1:
+        raise ValueError(f"need at least one device, got {n_devices}")
+    if not dense_only and n > AUTO_TILED_THRESHOLD:
+        return "tiled"
+    return "sharded" if n_devices > 1 else "bitmask"
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -142,19 +179,16 @@ def shared_kmer_matrix(
     ``members[offsets[c]:offsets[c+1]]`` lists the 0-based sample ids of
     color ``c`` and ``weights[c]`` its k-mer count.
 
-    ``engine``: "auto" | "bitmask" (XLA, packed-bit layout — the default
-    fast path) | "pallas" (fused VMEM-resident kernel) | "sharded"
-    (color blocks data-parallel over all devices, psum merge) | "scatter"
-    (postings scatter + matmul; kept for comparison/fallback).
+    ``engine``: "auto" (:func:`choose_engine`) | "bitmask" (packed-bit
+    layout, one device) | "sharded" (color blocks data-parallel over the
+    local devices, psum merge) | "scatter" (postings scatter + matmul;
+    kept for comparison).
     """
     if engine == "auto":
-        # fused Pallas kernel on real accelerators; XLA bitmask engine on
-        # CPU (Pallas would run interpreted there); all-device sharding
-        # when more than one chip is attached
-        if len(jax.devices()) > 1:
-            engine = "sharded"
-        else:
-            engine = "bitmask" if jax.default_backend() == "cpu" else "pallas"
+        engine = choose_engine(
+            jax.default_backend(), len(jax.local_devices()), n,
+            dense_only=True,
+        )
     if engine == "sharded":
         from kspider_tpu.parallel.sharded_pairwise import shared_kmer_matrix_sharded
 
@@ -167,12 +201,6 @@ def shared_kmer_matrix(
         return shared_kmer_matrix_bitmask(
             offsets, members, weights, n,
             block=max(block, 1024), drop_singletons=drop_singletons,
-        )
-    if engine == "pallas":
-        from kspider_tpu.ops.pallas_pairwise import shared_kmer_matrix_pallas
-
-        return shared_kmer_matrix_pallas(
-            offsets, members, weights, n, drop_singletons=drop_singletons
         )
     if engine != "scatter":
         raise ValueError(f"unknown engine {engine!r}")

@@ -1,45 +1,22 @@
-"""Multi-host initialization and hash-range work partitioning.
+"""Hash-range work partitioning for coordinated processes.
 
-The reference is strictly single-node (OpenMP); this framework scales to
-TPU pod slices via ``jax.distributed``.  The ingestion/index build is
-embarrassingly parallel over hash ranges: every unique k-mer hash belongs
-to exactly one range, so each host sorts/groups only its range and the
-color classes concatenate without reconciliation (a class's member set is
-derived from a single hash's postings, which never straddle ranges).
+The reference is strictly single-node (OpenMP); this framework scales
+over ``jax.distributed`` processes (parallel/multiprocess.py, which also
+initializes them).  The ingestion/index build is embarrassingly parallel
+over hash ranges: every unique k-mer hash belongs to exactly one range,
+so each process sorts/groups only its range and the color classes
+concatenate without reconciliation (a class's member set is derived from
+a single hash's postings, which never straddle ranges).
 
-On a pod slice, call :func:`initialize` first (no-op on a single
-process), then :func:`my_hash_range` to pick this host's slice of the
-u64 hash space, build a local :class:`ColorIndex` from its postings, and
-run the sharded pairwise with the global mesh — partial Gram matrices are
-merged by the psum in ``parallel/sharded_pairwise.py``, which rides ICI
-within a slice and DCN across slices exactly as XLA lays out the
-collective for the chosen mesh.
+Each process calls :func:`my_hash_range` to pick its slice of the u64
+hash space, builds a local :class:`ColorIndex` from its postings, and the
+partial Gram matrices are merged by one psum across processes.
 """
 
 from typing import Optional, Tuple
 
 import jax
 import numpy as np
-
-
-def initialize(
-    coordinator_address: Optional[str] = None,
-    num_processes: Optional[int] = None,
-    process_id: Optional[int] = None,
-) -> None:
-    """Initialize jax.distributed when running multi-process; safe no-op
-    for single-process runs (the common single-host case)."""
-    if num_processes is None or num_processes <= 1:
-        return
-    jax.distributed.initialize(
-        coordinator_address=coordinator_address,
-        num_processes=num_processes,
-        process_id=process_id,
-    )
-
-
-def process_info() -> Tuple[int, int]:
-    return jax.process_index(), jax.process_count()
 
 
 def my_hash_range(

@@ -1,13 +1,18 @@
-"""Device mesh construction for multi-chip runs.
+"""Device mesh construction for multi-device runs.
 
 The reference's only parallelism is single-node OpenMP
 (/root/reference/src/pairwise.cpp:202); this framework scales over a
-``jax.sharding.Mesh``.  Axis convention:
+``jax.sharding.Mesh`` of the local devices.  Axis convention:
 
 - ``"shards"``: the color/hash-range data-parallel axis — color blocks are
-  distributed over it and partial Gram matrices merged with ``psum`` over
-  ICI.  This is the primary scaling axis (one axis suffices while NxN fits
-  per-chip; N-dimension tiling rides on top for 100K-sample runs).
+  distributed over it and partial Gram matrices merged with one ``psum``.
+  One axis fits cards joined all to all (NVLink within a host), and
+  suffices while NxN fits one device; N-dimension tiling
+  (ops/tiled_pairwise.py) rides on top for 100K-sample runs.
+
+The mesh holds this process's devices only: in a multi-process run each
+process computes over its own cards and the processes merge through
+``parallel/multiprocess.psum_across_processes``.
 """
 
 from typing import Optional
@@ -20,7 +25,7 @@ SHARD_AXIS = "shards"
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = SHARD_AXIS) -> Mesh:
-    devices = jax.devices()
+    devices = jax.local_devices()
     if n_devices is not None:
         if n_devices > len(devices):
             raise ValueError(

@@ -2,11 +2,17 @@
 
 The reference's only parallelism is a single-node OpenMP split of the
 color range (/root/reference/src/pairwise.cpp:199-237).  This module is
-its multi-host replacement: N coordinated processes (one per host/slice)
-each compute a partial shared-k-mer matrix and merge it with **one psum
-over the global device mesh** — gloo collectives between CPU processes,
-ICI/DCN collectives between TPU hosts; the program is the same
-``shard_map`` either way.
+its multi-process replacement: N coordinated processes, each owning one
+card (or, on the CPU, one host process), compute a partial shared-k-mer
+matrix and merge it with **one psum over the global device mesh** — gloo
+collectives between CPU processes, NCCL between GPU processes; the
+program is the same ``shard_map`` either way.
+
+One process per card: each process is given one card of its host through
+``jax.distributed.initialize(local_device_ids=[...])`` (see
+:func:`local_device_id`).  Without that every process would open every
+visible card and reserve most of its memory, and the second process
+would fail to start.
 
 Two partitioning axes, both exact:
 
@@ -38,6 +44,7 @@ from kspider_tpu.parallel import distributed
 ENV_COORDINATOR = "KSPIDER_COORDINATOR"
 ENV_NUM_PROCESSES = "KSPIDER_NUM_PROCESSES"
 ENV_PROCESS_ID = "KSPIDER_PROCESS_ID"
+ENV_LOCAL_RANK = "KSPIDER_LOCAL_RANK"
 
 
 def resolve_flags(
@@ -54,6 +61,24 @@ def resolve_flags(
     return coordinator, int(num_processes or 1), process_id
 
 
+def local_device_id(process_id: int) -> int:
+    """The card of its host that process ``process_id`` owns.
+
+    ``KSPIDER_LOCAL_RANK`` names it outright (for hosts that run
+    different numbers of processes); otherwise, where
+    ``CUDA_VISIBLE_DEVICES`` lists the host's cards, processes take them
+    in turn (``process_id`` modulo their number, so hosts that each run
+    one process per visible card give their processes cards 0..k-1);
+    otherwise the card is ``process_id`` itself, which fits one host
+    running every process."""
+    rank = os.environ.get(ENV_LOCAL_RANK)
+    if rank:
+        return int(rank)
+    visible = [c for c in os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")
+               if c.strip()]
+    return process_id % len(visible) if visible else process_id
+
+
 def initialize(
     coordinator: Optional[str] = None,
     num_processes: Optional[int] = None,
@@ -61,31 +86,32 @@ def initialize(
 ) -> Tuple[int, int]:
     """Initialize ``jax.distributed`` from flags/env; no-op single-process.
 
-    Returns ``(process_index, process_count)`` as jax sees them.
+    Returns ``(process_index, process_count)`` as jax sees them; a second
+    call in the same process reuses the first initialization.  Process
+    ``process_id`` owns card :func:`local_device_id` of its host; the CPU
+    backend ignores the card choice.
     """
     import jax
 
     coordinator, num_processes, process_id = resolve_flags(
         coordinator, num_processes, process_id
     )
-    if num_processes > 1:
+    if num_processes > 1 and not jax.distributed.is_initialized():
         # CPU backends need a cross-process collective implementation;
-        # gloo ships with jaxlib.  TPU backends ignore this setting.
-        try:
-            jax.config.update("jax_cpu_collectives_implementation", "gloo")
-        except Exception:  # older jaxlib: option absent, gloo is default
-            pass
+        # gloo ships with jaxlib.  GPU backends use NCCL.
+        jax.config.update("jax_cpu_collectives_implementation", "gloo")
         jax.distributed.initialize(
             coordinator_address=coordinator,
             num_processes=num_processes,
             process_id=process_id,
+            local_device_ids=[local_device_id(process_id)],
         )
     return jax.process_index(), jax.process_count()
 
 
 #: int64 arrays are psum-merged as base-2^16 int32 limbs: exact for any
-#: value < 2^63 on every backend (TPUs have no int64; jax's default
-#: 32-bit mode would silently truncate), and each limb's cross-process
+#: value < 2^63 on every backend (jax's default 32-bit mode would
+#: silently truncate int64), and each limb's cross-process
 #: sum stays < 2^16 * n_processes << 2^31.
 _LIMB_BITS = 16
 _N_LIMBS = 4
@@ -167,7 +193,7 @@ def color_slice(
 
 
 def _local_partial_from_slice(
-    index, lo: int, hi: int, use_tpu: bool, engine: str = "auto"
+    index, lo: int, hi: int, use_device: bool, engine: str = "auto"
 ):
     """Partial shared matrix from a contiguous color-class slice."""
     from kspider_tpu.core.pairwise import compute_shared_matrix
@@ -186,13 +212,13 @@ def _local_partial_from_slice(
         slicing_mode=index.slicing_mode,
         params=index.params,
     )
-    return compute_shared_matrix(sub, use_tpu=use_tpu, engine=engine)
+    return compute_shared_matrix(sub, use_device=use_device, engine=engine)
 
 
 def run_distributed_pairwise(
     prefix: str,
     index=None,
-    use_tpu: bool = True,
+    use_device: bool = True,
     coordinator: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
@@ -220,11 +246,16 @@ def run_distributed_pairwise(
         raise ValueError(
             "the panel-streamed 'tiled' engine is single-process only; "
             "multi-process pairwise merges dense partials "
-            "(use --engine auto/bitmask/pallas/scatter, or drop "
+            "(use --engine auto/bitmask/scatter, or drop "
             "--num-processes to stream)"
         )
 
     pid, nproc = initialize(coordinator, num_processes, process_id)
+    if echo_timers:
+        import jax
+
+        print(f"process {pid}/{nproc}: local devices "
+              f"{[d.id for d in jax.local_devices()]}")
     t0 = time.perf_counter()
     if index is None:
         from kspider_tpu.io import npz_index
@@ -237,7 +268,7 @@ def run_distributed_pairwise(
 
     t0 = time.perf_counter()
     lo, hi = color_slice(index.num_colors, pid, nproc)
-    partial = _local_partial_from_slice(index, lo, hi, use_tpu, engine)
+    partial = _local_partial_from_slice(index, lo, hi, use_device, engine)
     merged = psum_across_processes(partial)
     if echo_timers and pid == 0:
         print(
@@ -274,7 +305,6 @@ def _part_path(prefix: str, pi: int) -> str:
 def run_distributed_tiled_pairwise(
     prefix: str,
     index=None,
-    use_tpu: bool = True,
     panel: int = 4096,
     block: int = 1024,
     min_shared: int = 1,
@@ -295,8 +325,6 @@ def run_distributed_tiled_pairwise(
     Returns the global pair-row count on every process.
     """
     import time
-
-    import jax
 
     from kspider_tpu.core import pairwise as core_pairwise
     from kspider_tpu.io import artifacts
@@ -331,14 +359,9 @@ def run_distributed_tiled_pairwise(
         for part in glob.glob(f"{prefix}_kSpider_pairwise.row*.part"):
             os.remove(part)
     barrier("tiled-parts-clean")
-    # explicit local engine: "auto" on a multi-device jax.distributed
-    # backend would build a GLOBAL mesh and turn every panel pair into a
-    # collective — each process's rows are independent by construction
-    engine = (
-        "xla"
-        if (not use_tpu or jax.default_backend() == "cpu")
-        else "pallas"
-    )
+    # explicit single-device engine: each process's rows are independent
+    # by construction, so no panel pair needs a collective
+    engine = "xla"
 
     total_local = 0
     current_row = -1
@@ -409,7 +432,7 @@ def run_distributed_tiled_pairwise(
 
 def run_multiprocess_pairwise(
     prefix: str,
-    use_tpu: bool = True,
+    use_device: bool = True,
     engine: str = "auto",
     panel: int = 4096,
     min_shared: int = 1,
@@ -420,25 +443,24 @@ def run_multiprocess_pairwise(
     """CLI dispatcher: same engine auto rule as the single-process
     ``core.pairwise.run_pairwise`` — the panel-streamed path for
     ``--engine tiled`` or N above the auto threshold, the dense
-    psum-merged path otherwise."""
-    from kspider_tpu.core.pairwise import AUTO_TILED_THRESHOLD
+    psum-merged path otherwise.  Initializes ``jax.distributed`` first:
+    the rule asks the backend, which must not start before it."""
+    from kspider_tpu.core.pairwise import resolve_engine
     from kspider_tpu.io import artifacts, npz_index
 
+    initialize(coordinator, num_processes, process_id)
     index = npz_index.load(prefix)
     if index is None:
         index = artifacts.load_index_artifacts(prefix)
-    tiled = engine == "tiled" or (
-        engine == "auto" and use_tpu and index.num_groups > AUTO_TILED_THRESHOLD
-    )
-    if tiled:
+    if resolve_engine(engine, use_device, index.num_groups) == "tiled":
         run_distributed_tiled_pairwise(
-            prefix, index=index, use_tpu=use_tpu, panel=panel,
+            prefix, index=index, panel=panel,
             min_shared=min_shared, coordinator=coordinator,
             num_processes=num_processes, process_id=process_id,
         )
         return
     run_distributed_pairwise(
-        prefix, index=index, use_tpu=use_tpu, engine=engine,
+        prefix, index=index, use_device=use_device, engine=engine,
         coordinator=coordinator, num_processes=num_processes,
         process_id=process_id, min_shared=min_shared,
     )
@@ -449,7 +471,7 @@ def distributed_pairwise_from_hash_sets(
     hash_arrays: Sequence[np.ndarray],
     prefix: str,
     ksize: int = 0,
-    use_tpu: bool = False,
+    use_device: bool = False,
     coordinator: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
@@ -478,7 +500,7 @@ def distributed_pairwise_from_hash_sets(
         list(names), sub, kmer_counts=full_counts, ksize=ksize,
         params=f"kSize:{ksize}",
     )
-    partial = core_pairwise.compute_shared_matrix(local_index, use_tpu=use_tpu)
+    partial = core_pairwise.compute_shared_matrix(local_index, use_device=use_device)
     merged = psum_across_processes(partial)
     if pid == 0:
         core_pairwise.write_seq_to_kmers_tsv(prefix, local_index)

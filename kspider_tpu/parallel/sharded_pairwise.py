@@ -1,12 +1,12 @@
-"""Multi-chip pairwise: color blocks sharded over the mesh, psum over ICI.
+"""Multi-device pairwise: color blocks sharded over the mesh, one psum.
 
-TPU-native replacement for the reference's OpenMP range-split + shared
-hash map (/root/reference/src/pairwise.cpp:199-237): each device owns a
+Replacement for the reference's OpenMP range-split + shared hash map
+(/root/reference/src/pairwise.cpp:199-237): each device owns a
 contiguous slice of color blocks in the packed-bitmask layout
 (ops/bitmask.py), unpacks and accumulates its partial Gram matrix with
-int8 MXU matmuls, and the partials are merged with a single
-``jax.lax.psum`` over the ``shards`` axis — the collective rides ICI,
-there is no shared mutable state and no contention.
+int8 matmuls, and the partials are merged with a single
+``jax.lax.psum`` over the ``shards`` axis (NCCL over NVLink between the
+cards of one host) — there is no shared mutable state and no contention.
 """
 
 import functools
@@ -20,23 +20,6 @@ from jax.sharding import Mesh, PartitionSpec as P
 from kspider_tpu.ops import bitmask as bm
 from kspider_tpu.ops import pairwise as pairwise_ops
 from kspider_tpu.parallel.mesh import SHARD_AXIS, make_mesh
-
-
-def _device_body_pallas(bits, w_limbs, block: int, n_pad: int, n_limbs: int,
-                        interpret: bool = False):
-    """Per-device Pallas path: transpose the local blocks into the kernel
-    layout, run the symmetric row-strip kernel, mirror on device.  Used on
-    TPU backends when the accumulator fits VMEM (pallas_pairwise.sym_fits);
-    ~1.3x the XLA scan body per chip."""
-    from kspider_tpu.ops import pallas_pairwise as pp
-
-    bits_t = jnp.swapaxes(bits, 1, 2)  # [NB, n_pad/8, block]
-    wl_t = jnp.swapaxes(w_limbs, 1, 2)  # [NB, L, block]
-    strip = pp.best_strip(n_pad)
-    acc = pp.cooccurrence_pallas_sym.__wrapped__(
-        bits_t, wl_t, block, n_pad, n_limbs, strip=strip, interpret=interpret
-    )
-    return pp.mirror_upper_device(acc, strip)
 
 
 def _device_body(bits, w_limbs, block: int, n_pad: int, n_limbs: int, axis=None):
@@ -63,10 +46,7 @@ def _device_body(bits, w_limbs, block: int, n_pad: int, n_limbs: int, axis=None)
     if axis is not None:
         # inside shard_map the carry must be marked varying over the mesh
         # axis to match the body output's vma type
-        if hasattr(jax.lax, "pcast"):
-            acc0 = jax.lax.pcast(acc0, axis, to="varying")
-        else:  # older jax
-            acc0 = jax.lax.pvary(acc0, (axis,))
+        acc0 = jax.lax.pcast(acc0, axis, to="varying")
     acc, _ = jax.lax.scan(body, acc0, (bits, w_limbs))
     return acc
 
@@ -78,41 +58,18 @@ def sharded_cooccurrence(
     n_pad: int,
     n_limbs: int,
     mesh: Mesh,
-    engine: str = "auto",
 ):
     """bits u8[NB, block, n_pad/8], w_limbs i8[NB, block, L] with NB
-    divisible by the mesh size; returns replicated i32[L, n_pad, n_pad].
-
-    ``engine``: "auto" picks the per-device Pallas symmetric kernel on
-    accelerator backends when the accumulator fits VMEM, else the XLA
-    scan body; "pallas"/"pallas-interpret"/"xla" force a path."""
-    if engine == "auto":
-        from kspider_tpu.ops import pallas_pairwise as pp
-
-        on_tpu = jax.default_backend() != "cpu"
-        engine = (
-            "pallas" if on_tpu and pp.sym_fits(n_pad, block, n_limbs) else "xla"
-        )
-
-    use_pallas = engine in ("pallas", "pallas-interpret")
+    divisible by the mesh size; returns replicated i32[L, n_pad, n_pad]."""
 
     @functools.partial(
         jax.shard_map,
         mesh=mesh,
         in_specs=(P(SHARD_AXIS, None, None), P(SHARD_AXIS, None, None)),
         out_specs=P(),
-        # pallas_call out_shapes carry no vma annotation; disable the
-        # varying-mesh-axes checker on that path
-        check_vma=not use_pallas,
     )
     def run(b, wl):
-        if use_pallas:
-            acc = _device_body_pallas(
-                b, wl, block, n_pad, n_limbs,
-                interpret=(engine == "pallas-interpret"),
-            )
-        else:
-            acc = _device_body(b, wl, block, n_pad, n_limbs, axis=SHARD_AXIS)
+        acc = _device_body(b, wl, block, n_pad, n_limbs, axis=SHARD_AXIS)
         return jax.lax.psum(acc, SHARD_AXIS)
 
     return jax.jit(run)(bits, w_limbs)
@@ -139,7 +96,6 @@ def shared_kmer_matrix_sharded(
     n: int,
     mesh: Optional[Mesh] = None,
     block: int = 1024,
-    engine: str = "auto",
 ) -> np.ndarray:
     """Mesh-parallel version of :func:`kspider_tpu.ops.pairwise.shared_kmer_matrix`.
 
@@ -178,7 +134,7 @@ def shared_kmer_matrix_sharded(
         wl = np.concatenate([wl, np.zeros((pad, block, n_limbs), dtype=np.int8)])
 
     acc = np.asarray(
-        sharded_cooccurrence(bits, wl, block, n_pad, n_limbs, mesh, engine)
+        sharded_cooccurrence(bits, wl, block, n_pad, n_limbs, mesh)
     ).astype(np.int64)
     total = np.zeros((n_pad, n_pad), dtype=np.int64)
     scale = 1

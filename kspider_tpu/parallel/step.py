@@ -5,14 +5,21 @@ device mesh.
 This is the flagship compute graph of the framework: the reference needs
 three separate processes (C++ pairwise, TSV round-trip, Python/rustworkx
 clustering — /root/reference/src/pairwise.cpp, ks_clustering.py); here the
-entire analysis after ingestion runs on-device with a single ``psum`` over
-ICI and no host round-trips.  Colors arrive in the packed-bitmask layout
+entire analysis after ingestion runs on-device with a single ``psum`` and
+no host round-trips.  Colors arrive in the packed-bitmask layout
 (ops/bitmask.py) — no scatter anywhere in the graph.
 
 Integer-exactness note: the fused step combines weight limbs in int32 on
 device (exact while every pairwise shared-count < 2**31, i.e. always in
 practice — counts are bounded by the number of unique k-mers).  The
 artifact-writing path combines on host in int64 instead.
+
+Division note: XLA's GPU backend divides float32 with ``div.full.f32``
+(within 2 ulp), not IEEE round-to-nearest, so a containment computed
+here can differ in the last bit from numpy's and flip a pair that sits
+exactly on the cutoff.  The CLI computes every containment on the host
+(core/pairwise.containment_columns and the native TSV writers), so its
+files are unaffected.
 """
 
 import functools
@@ -50,7 +57,7 @@ def _combine_and_cluster(acc, kmer_counts, cutoff, n_limbs):
 
 def single_device_step(bits, w_limbs, kmer_counts, cutoff,
                        block: int, n_pad: int, n_limbs: int):
-    """Jittable single-chip pipeline step (the graft ``entry`` target).
+    """Jittable single-device pipeline step (the graft ``entry`` target).
 
     bits u8[NB, block, n_pad/8], w_limbs i8[NB, block, L]."""
     acc = bm.cooccurrence_bitmask_blocks.__wrapped__(
@@ -61,8 +68,8 @@ def single_device_step(bits, w_limbs, kmer_counts, cutoff,
 
 def sharded_step(mesh: Mesh, bits, w_limbs, kmer_counts, cutoff,
                  block: int, n_pad: int, n_limbs: int):
-    """Full multi-chip step: shard color blocks, psum partial Gram
-    matrices over ICI, cluster on replicated output."""
+    """Full multi-device step: shard color blocks, psum partial Gram
+    matrices, cluster on replicated output."""
 
     @functools.partial(
         jax.shard_map,

@@ -1,16 +1,17 @@
 // Native runtime for kspider_tpu: streaming FASTA/FASTQ sketching,
 // phmap-dump-compatible binary IO, and an OpenMP host pairwise engine.
 //
-// This is the host-side counterpart of the TPU compute path — the roles
-// the reference implements in C++ (kmer decoding/hashing:
+// This is the host-side counterpart of the device compute path — the
+// roles the reference implements in C++ (kmer decoding/hashing:
 // /root/reference/src/fastx_to_kf.cpp; phmap dumps:
 // /root/reference/src/index.cpp:333-386; OpenMP pairwise hot loop:
 // /root/reference/src/pairwise.cpp:199-237) are re-implemented here from
 // scratch with a C ABI consumed via ctypes.  The OpenMP pairwise engine
-// doubles as the performance baseline that bench.py compares the TPU
-// kernel against.
+// doubles as the host baseline that bench.py compares the device Gram
+// against.
 //
-// Build: make -C native   (g++ -O3 -fopenmp -shared)
+// Build: make -C native   (g++ -O3 -shared, with -fopenmp where the
+// toolchain has OpenMP; without it every loop runs on one thread)
 
 #include <algorithm>
 #include <cstdint>
@@ -21,7 +22,18 @@
 #include <unordered_map>
 #include <vector>
 
+#ifdef _OPENMP
 #include <omp.h>
+#else
+#include <chrono>
+static inline int omp_get_max_threads() { return 1; }
+static inline int omp_get_thread_num() { return 0; }
+static inline double omp_get_wtime() {
+    return std::chrono::duration<double>(
+               std::chrono::steady_clock::now().time_since_epoch())
+        .count();
+}
+#endif
 #include <sys/mman.h>
 #include <zlib.h>
 
@@ -29,7 +41,7 @@ extern "C" {
 
 // Bumped whenever an exported signature changes; io/native.py checks it
 // and rebuilds a stale .so instead of calling with a mismatched ABI.
-int ks_abi_version() { return 4; }
+int ks_abi_version() { return 5; }
 
 // ---------------------------------------------------------------------------
 // memory
@@ -435,43 +447,32 @@ int ks_omp_max_threads() { return omp_get_max_threads(); }
 // hot path (kspider_tpu/ops/bitmask.py) feeding the panel-streamed
 // engine.  Segment s (color s's postings within one panel) owns output
 // row (s / block, s % block); rows are disjoint per segment, so the
-// OpenMP split over segments is race-free by construction.  Layouts:
-//   transposed == 0: out[n_blocks][block][n8]  (XLA engine layout)
-//   transposed == 1: out[n_blocks][n8][block]  (Pallas kernel layout)
-// ``out`` must be zero-initialized by the caller (np.zeros).
+// OpenMP split over segments is race-free by construction.  Layout:
+// out[n_blocks][block][n8]; ``out`` must be zero-initialized by the
+// caller (np.zeros).
 // ---------------------------------------------------------------------------
 
 void ks_pack_segments(const int32_t* mem_s, const int64_t* seg_start,
                       const int64_t* seg_count, int64_t n_segs,
                       int64_t panel_base, int64_t n8, int64_t block,
-                      int32_t transposed, uint8_t* out) {
+                      uint8_t* out) {
 #pragma omp parallel for schedule(dynamic, 16)
     for (int64_t s = 0; s < n_segs; s++) {
         const int64_t blk = s / block, c = s % block;
         const int32_t* m = mem_s + seg_start[s];
         const int64_t cnt = seg_count[s];
-        if (!transposed) {
-            uint8_t* row = out + ((size_t)blk * (size_t)block + (size_t)c) * (size_t)n8;
-            for (int64_t i = 0; i < cnt; i++) {
-                const int64_t local = (int64_t)m[i] - panel_base;
-                row[local >> 3] |= (uint8_t)(0x80u >> (local & 7));
-            }
-        } else {
-            uint8_t* base =
-                out + (size_t)blk * (size_t)n8 * (size_t)block + (size_t)c;
-            for (int64_t i = 0; i < cnt; i++) {
-                const int64_t local = (int64_t)m[i] - panel_base;
-                base[(size_t)(local >> 3) * (size_t)block] |=
-                    (uint8_t)(0x80u >> (local & 7));
-            }
+        uint8_t* row = out + ((size_t)blk * (size_t)block + (size_t)c) * (size_t)n8;
+        for (int64_t i = 0; i < cnt; i++) {
+            const int64_t local = (int64_t)m[i] - panel_base;
+            row[local >> 3] |= (uint8_t)(0x80u >> (local & 7));
         }
     }
 }
 
 // Parallel flat-posting fill: copy per-sample hash arrays into the
 // contiguous (hashes, gids) buffers the color build consumes.  The
-// Python per-sample loop costs ~19 s at 328M postings (numpy slice
-// dispatch per sample); this is a bandwidth-bound memcpy sweep.
+// Python per-sample loop pays numpy slice dispatch per sample; this is a
+// bandwidth-bound memcpy sweep.
 int ks_fill_postings(const uint64_t* const* srcs, const int64_t* lens,
                      const int32_t* gids, const int64_t* offs,
                      int64_t n_arrays, uint64_t* hashes_out,

@@ -3,16 +3,13 @@ from setuptools import find_packages, setup
 setup(
     name="kspider-tpu",
     version="0.1.0",
-    description="TPU-native sequence clustering engine (kSpider capabilities)",
+    description="Accelerator sequence clustering engine (kSpider capabilities)",
     packages=find_packages(include=["kspider_tpu", "kspider_tpu.*"]),
     python_requires=">=3.9",
     install_requires=[
-        "click",
         "numpy",
         "jax",
-        "pandas",
         "scipy",
-        "tqdm",
     ],
     entry_points={
         "console_scripts": [

@@ -66,15 +66,15 @@ def test_streamed_cluster_chunks_match_single_pass(tmp_path, rng):
         f.write("\n".join(rows) + "\n")
 
     out_small = cluster_core.cluster_index(
-        prefix, 0.5, use_tpu=False, chunk_rows=7
+        prefix, 0.5, use_device=False, chunk_rows=7
     )
     small = open(out_small).read()
     out_big = cluster_core.cluster_index(
-        prefix, 0.5, use_tpu=False, chunk_rows=10**7
+        prefix, 0.5, use_device=False, chunk_rows=10**7
     )
     assert open(out_big).read() == small
     # and the device pointer-jumping path agrees with scipy
-    out_dev = cluster_core.cluster_index(prefix, 0.5, use_tpu=True, chunk_rows=13)
+    out_dev = cluster_core.cluster_index(prefix, 0.5, use_device=True, chunk_rows=13)
     assert open(out_dev).read() == small
 
 
@@ -100,15 +100,15 @@ def test_cluster_from_index_matches_tsv_path(tmp_path, rng):
     index = build_index_from_hash_sets(names, arrays, ksize=21)
     prefix = str(tmp_path / "idx")
     artifacts_io.write_index_artifacts(prefix, index)
-    shared = core_pairwise.compute_shared_matrix(index, use_tpu=False)
+    shared = core_pairwise.compute_shared_matrix(index, use_device=False)
     core_pairwise.write_seq_to_kmers_tsv(prefix, index)
     core_pairwise.write_pairwise_tsv(prefix, index, shared)
 
     for cutoff in (0.2, 0.5):
-        out_tsv = cluster_core.cluster_index(prefix, cutoff, use_tpu=False)
+        out_tsv = cluster_core.cluster_index(prefix, cutoff, use_device=False)
         via_tsv = open(out_tsv).read()
         out_fused = cluster_core.cluster_from_index(
-            index, prefix, cutoff, use_tpu=False, panel=16, block=64
+            index, prefix, cutoff, use_device=False, panel=16, block=64
         )
         assert open(out_fused).read() == via_tsv, cutoff
 

@@ -54,7 +54,7 @@ def test_device_build_with_ghost_group(rng):
 def test_index_cli_device_build_flag(tmp_path, rng, monkeypatch):
     # `kspider index --device-build` routes through build_index_device and
     # yields artifacts identical to the host build
-    from click.testing import CliRunner
+    from tests.cli_runner import CliRunner
 
     from kspider_tpu.cli.main import cli
     from kspider_tpu.io import sigs as sigs_io

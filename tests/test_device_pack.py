@@ -34,25 +34,22 @@ def keys_from_csr(offsets, members, panel_pad, n_blocks, block):
     return out
 
 
-@pytest.mark.parametrize("transpose", [False, True])
-def test_scatter_pack_matches_host_packer(rng, transpose):
-    n, block, n_colors = 700, 128, 500
+@pytest.mark.parametrize("n,block,n_colors,panel_pad", [
+    (700, 128, 500, 768),
+    (1000, 256, 700, 1024),
+])
+def test_scatter_pack_matches_host_packer(rng, n, block, n_colors, panel_pad):
     o, m, _ = random_csr(rng, n_colors, n, max_degree=60, max_weight=10)
     # members ascending within each color (plan invariant)
     for c in range(n_colors):
         m[o[c]: o[c + 1]] = np.sort(m[o[c]: o[c + 1]])
-    panel_pad = 768
     n_blocks = -(-n_colors // block)
     host = bm.pack_bitmask_blocks(
         np.concatenate([o, np.full(n_blocks * block - n_colors, o[-1])]),
         m, panel_pad, block,
     )
-    if transpose:
-        host = np.ascontiguousarray(host.transpose(0, 2, 1))
     keys = keys_from_csr(o, m, panel_pad, n_blocks, block)
-    dev = np.asarray(
-        bm.scatter_pack_device(keys, n_blocks, block, panel_pad, transpose)
-    )
+    dev = np.asarray(bm.scatter_pack_device(keys, n_blocks, block, panel_pad))
     assert np.array_equal(dev, host)
 
 
@@ -60,7 +57,7 @@ def test_scatter_pack_empty_side(rng):
     keys = keys_from_csr(
         np.zeros(2, np.int64), np.zeros(0, np.int64), 256, 1, 128
     )
-    dev = np.asarray(bm.scatter_pack_device(keys, 1, 128, 256, False))
+    dev = np.asarray(bm.scatter_pack_device(keys, 1, 128, 256))
     assert dev.shape == (1, 128, 32)
     assert not dev.any()
 
@@ -123,40 +120,6 @@ def test_device_pack_big_weights_exact(rng, monkeypatch):
         tp.iter_panel_pairs(plan, engine="xla", block=64, tile=128), n
     )
     assert np.array_equal(s, pw.shared_kmer_matrix_numpy(o, m, w, n))
-
-
-@pytest.mark.parametrize("policy", ["force", "auto"])
-def test_dense_pallas_device_pack_exact(rng, monkeypatch, policy):
-    """The full-matrix pallas path also ships posting keys per chunk."""
-    from kspider_tpu.ops import pallas_pairwise as pp
-
-    monkeypatch.setenv("KSPIDER_DEVICE_PACK", policy)
-    monkeypatch.setenv("KSPIDER_DEVICE_PACK_RATIO", "1")
-    n = 800
-    o, m, w = random_csr(rng, 1200, n, max_degree=15, max_weight=40000)
-    for c in range(1200):  # plan invariant: members ascending per color
-        m[o[c]: o[c + 1]] = np.sort(m[o[c]: o[c + 1]])
-    got = pp.shared_kmer_matrix_pallas(o, m, w, n, block=256)
-    assert np.array_equal(got, pw.shared_kmer_matrix_numpy(o, m, w, n))
-
-
-def test_dense_pallas_unsorted_members_fall_back(rng, monkeypatch):
-    """Unsorted members within a color disqualify the scatter keys; the
-    path must silently host-pack and stay exact."""
-    from kspider_tpu.ops import bitmask as bm
-    from kspider_tpu.ops import pallas_pairwise as pp
-
-    monkeypatch.setenv("KSPIDER_DEVICE_PACK", "force")
-    n = 400
-    o, m, w = random_csr(rng, 500, n, max_degree=10, max_weight=500)
-    # random_csr may or may not emit sorted members; force one inversion
-    c = int(np.flatnonzero(np.diff(o) >= 2)[0])
-    m[o[c]], m[o[c] + 1] = m[o[c] + 1].copy(), m[o[c]].copy()
-    if m[o[c]] == m[o[c] + 1]:
-        m[o[c] + 1] = (m[o[c] + 1] + 1) % n
-    assert bm.build_scatter_keys(o, m, 512, 4, 128) is None
-    got = pp.shared_kmer_matrix_pallas(o, m, w, n, block=128)
-    assert np.array_equal(got, pw.shared_kmer_matrix_numpy(o, m, w, n))
 
 
 def test_cli_device_pack_flag(tmp_path, rng):
@@ -251,23 +214,15 @@ def test_delta_keys_bit_exact(rng):
     padded[:m] = keys
     padded[m:] = total + np.arange(bucket - m, dtype=np.int32)
 
-    ref = np.asarray(bm.scatter_pack_device(padded, n_blocks, block,
-                                            n_pad, False))
+    ref = np.asarray(bm.scatter_pack_device(padded, n_blocks, block, n_pad))
     enc = bm.delta_encode_keys(padded, m)
     assert enc is not None
     first, d16 = enc
     assert d16.dtype == np.int16 and len(d16) == bucket
     got = np.asarray(bm.scatter_pack_device_delta(
         np.int32(first), jnp.asarray(d16), np.int32(m), n_blocks, block,
-        n_pad, False))
+        n_pad))
     assert np.array_equal(got, ref)
-    # transposed Pallas layout too
-    ref_t = np.asarray(bm.scatter_pack_device(padded, n_blocks, block,
-                                              n_pad, True))
-    got_t = np.asarray(bm.scatter_pack_device_delta(
-        np.int32(first), jnp.asarray(d16), np.int32(m), n_blocks, block,
-        n_pad, True))
-    assert np.array_equal(got_t, ref_t)
 
 
 def test_delta_keys_fallback_on_big_gap():
@@ -302,19 +257,22 @@ def test_delta8_keys_bit_exact_with_escapes(rng):
     padded[:m] = keys
     padded[m:] = total + np.arange(bucket - m, dtype=np.int32)
 
-    ref = np.asarray(bm.scatter_pack_device(padded, n_blocks, block,
-                                            n_pad, False))
+    ref = np.asarray(bm.scatter_pack_device(padded, n_blocks, block, n_pad))
     enc = bm.delta_encode_keys_u8(padded, m)
     assert enc is not None
     first, d8, exc = enc
-    assert d8.dtype == np.uint8 and (exc > 255).all() or len(exc)
-    for transpose in (False, True):
-        ref_t = np.asarray(bm.scatter_pack_device(
-            padded, n_blocks, block, n_pad, transpose))
-        got = np.asarray(bm.scatter_pack_device_delta8(
-            np.int32(first), jnp.asarray(d8), jnp.asarray(exc),
-            np.int32(m), n_blocks, block, n_pad, transpose))
-        assert np.array_equal(got, ref_t)
+    assert d8.dtype == np.uint8
+    # every gap > 255 escapes into the exception array, in order
+    gaps = np.diff(keys.astype(np.int64))
+    n_exc = int((gaps > 255).sum())
+    assert n_exc > 0
+    assert np.array_equal(exc[:n_exc], gaps[gaps > 255])
+    assert (exc[:n_exc] > 255).all()
+    assert int((d8[1:m] == 0).sum()) == n_exc
+    got = np.asarray(bm.scatter_pack_device_delta8(
+        np.int32(first), jnp.asarray(d8), jnp.asarray(exc),
+        np.int32(m), n_blocks, block, n_pad))
+    assert np.array_equal(got, ref)
 
 
 def test_encode_keys_best_selection():

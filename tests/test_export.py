@@ -6,7 +6,7 @@ import os
 
 import numpy as np
 import pytest
-from click.testing import CliRunner
+from tests.cli_runner import CliRunner
 
 from kspider_tpu.cli.main import cli
 from kspider_tpu.core import pairwise as core_pairwise
@@ -29,7 +29,7 @@ def _make_prefix(tmp_path, n=6, seed=3):
     index = build_index_from_hash_sets(names, arrays, ksize=21,
                                        params="kSize:21")
     prefix = str(tmp_path / "exp")
-    shared = core_pairwise.compute_shared_matrix(index, use_tpu=False)
+    shared = core_pairwise.compute_shared_matrix(index, use_device=False)
     core_pairwise.write_seq_to_kmers_tsv(prefix, index)
     core_pairwise.write_pairwise_tsv(prefix, index, shared)
     with open(prefix + ".namesMap", "w") as f:

@@ -101,7 +101,7 @@ def test_artifact_roundtrip_reproduces_pairwise(pipeline_run, tmp_path):
     (this is the compat path the reference pairwise binary uses)."""
     prefix, index, shared, sig_sets = pipeline_run
     loaded = artifacts_io.load_index_artifacts(prefix)
-    shared2 = core_pairwise.compute_shared_matrix(loaded, use_tpu=False)
+    shared2 = core_pairwise.compute_shared_matrix(loaded, use_device=False)
     assert np.array_equal(shared, shared2)
 
 
@@ -137,7 +137,7 @@ def test_cluster_stage(pipeline_run, tmp_path):
 
     # device CC must agree with scipy CC on the same edges
     out2 = core_cluster.cluster_index(
-        prefix, cutoff=0.35, dist_type="max_cont", use_tpu=False
+        prefix, cutoff=0.35, dist_type="max_cont", use_device=False
     )
     with open(out2) as f:
         clusters2 = [set(line.strip().split(",")) for line in f if line.strip()]

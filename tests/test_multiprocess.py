@@ -51,13 +51,13 @@ WORKER = textwrap.dedent(
         )
     elif mode == "tiled":
         mp.run_distributed_tiled_pairwise(
-            prefix, use_tpu=False, panel=panel, block=128,
+            prefix, panel=panel, block=128,
             coordinator=coord, num_processes=nproc, process_id=pid,
             echo_timers=False,
         )
     else:
         mp.run_distributed_pairwise(
-            prefix, use_tpu=False, coordinator=coord,
+            prefix, use_device=False, coordinator=coord,
             num_processes=nproc, process_id=pid, echo_timers=False,
         )
     print("WORKER_OK", pid)
@@ -100,15 +100,17 @@ def _spawn_workers(tmp_path, mode: str, prefix: str, nproc: int = 2,
             subprocess.Popen(
                 [sys.executable, str(script), mode, str(pid), str(nproc),
                  str(port), prefix, str(panel)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env,
+                # stderr apart: the collectives' C++ logging writes to it
+                # from other threads and could split the WORKER_OK line
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env,
                 cwd=str(tmp_path),
             )
             for pid in range(nproc)
         ]
         outs = []
         for p in procs:
-            out, _ = p.communicate(timeout=180)
-            outs.append(out.decode())
+            out, err = p.communicate(timeout=180)
+            outs.append(out.decode() + err.decode())
         ok = all(
             p.returncode == 0 and f"WORKER_OK {pid}" in out
             for pid, (p, out) in enumerate(zip(procs, outs))
@@ -146,7 +148,7 @@ def test_hashrange_two_process_matches_single(tmp_path, nproc):
     golden_prefix = str(tmp_path / "golden")
     index = build_index_from_hash_sets(names, arrays, ksize=21,
                                        params="kSize:21")
-    shared = core_pairwise.compute_shared_matrix(index, use_tpu=False)
+    shared = core_pairwise.compute_shared_matrix(index, use_device=False)
     core_pairwise.write_seq_to_kmers_tsv(golden_prefix, index)
     core_pairwise.write_pairwise_tsv(golden_prefix, index, shared)
 
@@ -166,7 +168,7 @@ def test_colorslice_two_process_matches_single(tmp_path):
     golden_prefix = str(tmp_path / "golden")
     index = build_index_from_hash_sets(names, arrays, ksize=21,
                                        params="kSize:21")
-    shared = core_pairwise.compute_shared_matrix(index, use_tpu=False)
+    shared = core_pairwise.compute_shared_matrix(index, use_device=False)
     core_pairwise.write_seq_to_kmers_tsv(golden_prefix, index)
     core_pairwise.write_pairwise_tsv(golden_prefix, index, shared)
 
@@ -228,7 +230,7 @@ def test_tiled_cleans_stale_parts_from_smaller_panel_runs(tmp_path):
     orphan = mp._part_path(prefix, 37)
     open(orphan, "w").write("stale\n")
     mp.run_distributed_tiled_pairwise(
-        prefix, index=index, use_tpu=False, panel=16, block=128,
+        prefix, index=index, panel=16, block=128,
         echo_timers=False,
     )
     assert not os.path.exists(orphan)
@@ -248,7 +250,7 @@ def test_dense_min_shared_filters_rows(tmp_path):
     ]
     index = build_index_from_hash_sets(names, arrays, ksize=21,
                                        params="kSize:21")
-    shared = core_pairwise.compute_shared_matrix(index, use_tpu=False)
+    shared = core_pairwise.compute_shared_matrix(index, use_device=False)
     floor = int(np.median(shared[shared > 0])) if (shared > 0).any() else 1
 
     dense_prefix = str(tmp_path / "dense")
@@ -373,3 +375,23 @@ def test_resolve_flags_env_fallback(monkeypatch):
     assert mp.resolve_flags() == ("host:1234", 4, 2)
     # explicit flags win
     assert mp.resolve_flags("h:1", 2, 0) == ("h:1", 2, 0)
+
+
+@pytest.mark.parametrize("local_rank,visible,pid,card", [
+    (None, None, 3, 3),          # one host runs every process
+    (None, "0,1,2,3", 2, 2),
+    (None, "0,1,2,3", 6, 2),     # second host of four cards each
+    (None, "5", 1, 0),           # one visible card per host
+    (None, "", 1, 1),            # empty list: no cards named
+    ("1", "0,1,2,3", 6, 1),      # an explicit local rank wins
+])
+def test_local_device_id(monkeypatch, local_rank, visible, pid, card):
+    from kspider_tpu.parallel import multiprocess as mp
+
+    for name, value in ((mp.ENV_LOCAL_RANK, local_rank),
+                        ("CUDA_VISIBLE_DEVICES", visible)):
+        if value is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, value)
+    assert mp.local_device_id(pid) == card

@@ -1,4 +1,4 @@
-"""MXU co-occurrence kernel vs numpy reference."""
+"""Co-occurrence engine (scatter path) vs numpy reference."""
 
 import numpy as np
 
@@ -32,22 +32,22 @@ def test_weight_limbs_roundtrip(rng):
 def test_matmul_matches_numpy_small(rng):
     offsets, members, weights = random_csr(rng, 200, 17, max_weight=1)
     s_np = pw.shared_kmer_matrix_numpy(offsets, members, weights, 17)
-    s_tpu = pw.shared_kmer_matrix(offsets, members, weights, 17, block=64)
-    assert np.array_equal(s_np, s_tpu)
+    s_dev = pw.shared_kmer_matrix(offsets, members, weights, 17, block=64)
+    assert np.array_equal(s_np, s_dev)
 
 
 def test_matmul_matches_numpy_large_weights(rng):
     offsets, members, weights = random_csr(rng, 300, 40, max_weight=2**21)
     s_np = pw.shared_kmer_matrix_numpy(offsets, members, weights, 40)
-    s_tpu = pw.shared_kmer_matrix(offsets, members, weights, 40, block=128)
-    assert np.array_equal(s_np, s_tpu)
+    s_dev = pw.shared_kmer_matrix(offsets, members, weights, 40, block=128)
+    assert np.array_equal(s_np, s_dev)
 
 
 def test_matmul_block_not_dividing(rng):
     offsets, members, weights = random_csr(rng, 131, 9, max_weight=300)
     s_np = pw.shared_kmer_matrix_numpy(offsets, members, weights, 9)
-    s_tpu = pw.shared_kmer_matrix(offsets, members, weights, 9, block=64)
-    assert np.array_equal(s_np, s_tpu)
+    s_dev = pw.shared_kmer_matrix(offsets, members, weights, 9, block=64)
+    assert np.array_equal(s_np, s_dev)
 
 
 def test_no_multi_colors():

@@ -97,7 +97,7 @@ def test_cluster_uses_round_trip_parse(rng, tmp_path, monkeypatch):
     with open(prefix + ".namesMap", "w") as f:
         f.write("2\n1 a\n2 b\n")
     out = core_cluster.cluster_index(
-        prefix, cutoff=0.9, dist_type="max_cont", use_tpu=False
+        prefix, cutoff=0.9, dist_type="max_cont", use_device=False
     )
     lines = open(out).read().splitlines()
     assert sorted(lines) == ["a", "b"]  # two singletons, not one cluster

@@ -25,19 +25,6 @@ def test_sharded_matches_numpy(rng, n_dev):
     assert np.array_equal(s_sharded, s_np)
 
 
-def test_sharded_pallas_body_matches_numpy(rng):
-    # the per-device Pallas symmetric kernel inside shard_map (interpret
-    # mode on the CPU mesh; real TPUs take this path compiled)
-    offsets, members, weights = random_csr(rng, 500, 150, max_weight=40000)
-    mesh = mesh_lib.make_mesh(4)
-    s_sharded = sharded_pairwise.shared_kmer_matrix_sharded(
-        offsets, members, weights, 150, mesh=mesh, block=128,
-        engine="pallas-interpret",
-    )
-    s_np = pw.shared_kmer_matrix_numpy(offsets, members, weights, 150)
-    assert np.array_equal(s_sharded, s_np)
-
-
 def test_sharded_fewer_blocks_than_devices(rng):
     offsets, members, weights = random_csr(rng, 10, 5, max_degree=3, max_weight=3)
     mesh = mesh_lib.make_mesh(8)

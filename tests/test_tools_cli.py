@@ -1,8 +1,10 @@
-"""The tools subcommands, driven through click's test runner."""
+"""The tools subcommands, driven through the in-process CLI runner."""
+
+import os
 
 import numpy as np
 import pytest
-from click.testing import CliRunner
+from tests.cli_runner import CliRunner
 
 from kspider_tpu.cli.main import cli
 from kspider_tpu.io import phmap as phmap_io
@@ -85,37 +87,43 @@ def test_repr_sketches(tmp_path, runner):
     assert r.output.splitlines()[0] == "2: 2"
 
 
-def test_jaxcache_enable_idempotent_and_off(monkeypatch, tmp_path):
-    """enable_persistent_cache: sets the dir once, never overrides an
-    explicit config, and KSPIDER_JAX_CACHE=off disables."""
+def test_jaxcache_enable_idempotent_and_off(monkeypatch):
+    """enable_persistent_cache: without JAX_COMPILATION_CACHE_DIR it sets
+    the fixed in-checkout dir, idempotently; with the variable set it
+    leaves the config off its hands (JAX took the value from the env)."""
     from kspider_tpu.utils import jaxcache
 
     import jax
 
     prev = jax.config.jax_compilation_cache_dir
     try:
-        monkeypatch.setattr(jaxcache, "_done", False)
-        monkeypatch.setenv("KSPIDER_JAX_CACHE", str(tmp_path / "cc"))
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
         jax.config.update("jax_compilation_cache_dir", None)
         jaxcache.enable_persistent_cache()
-        assert jax.config.jax_compilation_cache_dir == str(tmp_path / "cc")
-        assert (tmp_path / "cc").is_dir()
-        # second call is a no-op even with a different env
-        monkeypatch.setenv("KSPIDER_JAX_CACHE", str(tmp_path / "other"))
         jaxcache.enable_persistent_cache()
-        assert jax.config.jax_compilation_cache_dir == str(tmp_path / "cc")
+        assert jax.config.jax_compilation_cache_dir == jaxcache.CACHE_DIR
+        assert os.path.isdir(jaxcache.CACHE_DIR)
 
-        # explicit config wins over the env default
-        monkeypatch.setattr(jaxcache, "_done", False)
-        jax.config.update("jax_compilation_cache_dir", str(tmp_path / "mine"))
-        jaxcache.enable_persistent_cache()
-        assert jax.config.jax_compilation_cache_dir == str(tmp_path / "mine")
-
-        # off disables
-        monkeypatch.setattr(jaxcache, "_done", False)
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/nonexistent/x")
         jax.config.update("jax_compilation_cache_dir", None)
-        monkeypatch.setenv("KSPIDER_JAX_CACHE", "off")
         jaxcache.enable_persistent_cache()
         assert jax.config.jax_compilation_cache_dir is None
     finally:
         jax.config.update("jax_compilation_cache_dir", prev)
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compile_cache_dir(monkeypatch, tmp_path, env_set):
+    """The cache lands in $JAX_COMPILATION_CACHE_DIR when set, otherwise
+    in one fixed directory inside the checkout that git ignores."""
+    from kspider_tpu.utils import jaxcache
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if env_set:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "c"))
+        assert jaxcache.cache_dir() == str(tmp_path / "c")
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        assert jaxcache.cache_dir() == os.path.join(repo, ".jax_cache")
+        with open(os.path.join(repo, ".gitignore")) as f:
+            assert ".jax_cache/" in f.read().split()
